@@ -1,21 +1,18 @@
 #!/usr/bin/env python
-"""Non-learned baseline: exact MXU brute-force scan (VERDICT #8).
+"""Non-learned baseline: the exact brute-force scan on the GPU.
 
 The reference's recall/QPS yardstick is hnswlib
-(``/root/reference/nlsh/trainers/hnsw.py:36-63``); this image has no
-hnswlib and no way to install it (no pip, no network egress), so the
-honest non-learned baseline on this hardware is the thing a TPU is
-actually good at: the exact tiled brute-force kNN on the MXU
-(:mod:`nlsh_tpu.ops.knn` — the same kernel that produces ground
-truth).  It answers every query at recall 1.0; the learned index's
-value is the throughput multiple it buys at its recall operating
-point.  Run on the real chip; prints one JSON line.
+(``nlsh/trainers/hnsw.py:36-63``); the accelerator's own non-learned
+baseline is the exact tiled brute-force kNN (:mod:`nlsh_jax.ops.knn` —
+the same code that produces ground truth).  It answers every query at
+recall 1.0; the learned index's value is the throughput multiple it
+buys at its recall operating point.  Needs a GPU; prints one JSON line
+with the device and the card's name and power limit.
 
 Scale note: brute force is O(n) per query, the learned index is
-O(candidates): at the bench operating point (1.18M rows) the learned
-index serves ~4.6k candidates/query — a ~250x compute reduction — so
-the gap widens linearly with corpus size (the 10M config cannot be
-brute-forced at interactive rates at all).
+O(candidates), so the gap widens linearly with corpus size.
+
+    python benchmarks/baseline_exact.py
 """
 
 from __future__ import annotations
@@ -29,11 +26,14 @@ import bench
 
 
 def main():
-    import jax
     import jax.numpy as jnp
 
-    from nlsh_tpu.ops.knn import knn
+    from nlsh_jax.ops.knn import knn
+    from nlsh_jax.utils.device import card_info, require_gpu
+    from nlsh_jax.utils.env import setup_compile_cache
 
+    setup_compile_cache()
+    device = require_gpu()
     rng = np.random.default_rng(bench.SEED)
     corpus_np, queries_np = bench.glove100_workload(rng)
     corpus = jnp.asarray(corpus_np)
@@ -52,19 +52,18 @@ def main():
         t0 = time.perf_counter()
         _, ids = knn(queries, corpus, k=bench.K, metric="cosine",
                      query_tile=1024, corpus_chunk=131_072)
-        ids = np.asarray(ids)  # host fetch = the honest timing fence
+        ids = np.asarray(ids)  # host fetch ends the timed region
         times.append(time.perf_counter() - t0)
 
     qps = nq / min(times)
     print(json.dumps({
         "config": "baseline_exact_bruteforce_1.18M",
-        "qps": round(qps, 1),
+        "qps": qps,
         "recall_at_10": 1.0,
         "scan_rows_per_query": corpus.shape[0],
-        "compile_s": round(compile_s, 1),
-        "backend": jax.default_backend(),
-        "note": "hnswlib unavailable in image (no pip/network); "
-                "exact MXU scan is the non-learned yardstick",
+        "compile_s": compile_s,
+        "device": device,
+        "card": card_info(),
     }))
 
 

@@ -1,16 +1,16 @@
 #!/usr/bin/env python
-"""HNSW baseline on the headline workload (round-2 VERDICT #8).
+"""HNSW baseline on the headline workload (CPU only).
 
 The reference's non-learned yardstick is hnswlib at cosine, M=10,
 ef_construction=500, ef=40 (``nlsh/trainers/hnsw.py:28-34``); hnswlib
 is not installable here, so this measures the in-repo native C++
-implementation (``nlsh_tpu/native/hnsw.cpp``) on the SAME corpus,
+implementation (``nlsh_jax/native/hnsw.cpp``) on the SAME corpus,
 queries, and exact ground truth as ``bench.py`` — recall/QPS/
 query_size rows directly comparable with the learned index's.
 
-Host CPU measurement (this image exposes ONE core — hnswlib numbers
-in ann-benchmarks are also single-CPU-core).  Emits one JSON line per
-ef operating point.
+Host CPU measurement on ONE core (hnswlib numbers in ann-benchmarks
+are also single-CPU-core); no accelerator is involved.  Emits one JSON
+line per ef operating point.
 
 ``NLSH_HNSW_N`` bounds the corpus (default: full 1.18M); the build is
 O(N · ef_construction) single-core, measured ~1-2k inserts/s at d=100.
@@ -34,8 +34,8 @@ from bench import (
     _load_or_compute_gt,
     glove100_workload,
 )
-from nlsh_tpu.native import NativeHNSW, _get_lib
-from nlsh_tpu.utils.metrics import calculate_recall
+from nlsh_jax.native import NativeHNSW, _get_lib
+from nlsh_jax.utils.metrics import calculate_recall
 
 
 def main():
@@ -53,8 +53,7 @@ def main():
         gt, _, gt_s, _ = _load_or_compute_gt(corpus, queries, sub_idx)
     else:
         # subsampled corpus: brute-force GT on host numpy (BLAS) — no
-        # device touch, so a TPU DOWN window can't hang this CPU-only
-        # baseline run or poison jax's cached backend state
+        # device touch, so this CPU-only baseline needs no accelerator
         corpus = corpus[:n]
         t0 = time.perf_counter()
         gt = np.empty((queries.shape[0], 10), dtype=np.int64)

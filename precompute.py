@@ -4,7 +4,10 @@
 Example:
     python precompute.py glove_100
 """
-from nlsh_tpu.cli.precompute import main
+from nlsh_jax.cli.precompute import main
 
 if __name__ == "__main__":
+    from nlsh_jax.utils.env import setup_compile_cache
+
+    setup_compile_cache()
     main()

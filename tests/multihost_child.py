@@ -1,13 +1,13 @@
 """Child process for the multi-host test (run by test_multihost.py).
 
 Joins a 2-process ``jax.distributed`` cluster via
-:func:`nlsh_tpu.parallel.multihost.initialize_from_env` (the env vars
+:func:`nlsh_jax.parallel.multihost.initialize_from_env` (the env vars
 the CLI path reads), then runs a data-parallel-shaped step over the
 GLOBAL mesh: each process contributes its local shard of a batch, the
 per-shard gradient of a toy quadratic loss is ``pmean``-ed inside
 ``shard_map`` — the exact collective pattern
-:mod:`nlsh_tpu.parallel.dp` uses for gradient reduction, here riding
-Gloo across processes instead of ICI.  Results are written as JSON for
+:mod:`nlsh_jax.parallel.dp` uses for gradient reduction, here riding
+Gloo across processes instead of NCCL.  Results are written as JSON for
 the parent to assert on.
 """
 
@@ -23,14 +23,14 @@ def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from nlsh_tpu.parallel.multihost import initialize_from_env
+    from nlsh_jax.parallel.multihost import initialize_from_env
 
     initialized = initialize_from_env()
 
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from nlsh_tpu.parallel.mesh import make_mesh
+    from nlsh_jax.parallel.mesh import make_mesh
 
     mesh = make_mesh(axis="data")  # spans every process's devices
     sharding = NamedSharding(mesh, P("data"))

@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nlsh_tpu.data import SyntheticDataset
-from nlsh_tpu.index.bucket_table import build_bucket_table
-from nlsh_tpu.index.indexer import hash_corpus
-from nlsh_tpu.models.encoders import MLPEncoder
-from nlsh_tpu.models.hashings import MultivariateBernoulli
-from nlsh_tpu.ops.code_distances import bucket_balance_loss
-from nlsh_tpu.train import TripletTrainer
+from nlsh_jax.data import SyntheticDataset
+from nlsh_jax.index.bucket_table import build_bucket_table
+from nlsh_jax.index.indexer import hash_corpus
+from nlsh_jax.models.encoders import MLPEncoder
+from nlsh_jax.models.hashings import MultivariateBernoulli
+from nlsh_jax.ops.code_distances import bucket_balance_loss
+from nlsh_jax.train import TripletTrainer
 
 
 def test_balance_loss_zero_on_uniform():

@@ -8,7 +8,7 @@ slice must equal the dict's insertion-ordered row list.
 import jax.numpy as jnp
 import numpy as np
 
-from nlsh_tpu.index.bucket_table import build_bucket_table
+from nlsh_jax.index.bucket_table import build_bucket_table
 
 
 def _ref_build_index(bucket_ids):

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nlsh_tpu.models.encoders import MLPEncoder, SirenEncoder
-from nlsh_tpu.models.hashings import Categorical, MultivariateBernoulli
-from nlsh_tpu.ops.code_distances import MVBernoulliKLDivergence, MVBernoulliL2
-from nlsh_tpu.utils import checkpoint as ckpt
+from nlsh_jax.models.encoders import MLPEncoder, SirenEncoder
+from nlsh_jax.models.hashings import Categorical, MultivariateBernoulli
+from nlsh_jax.ops.code_distances import MVBernoulliKLDivergence, MVBernoulliL2
+from nlsh_jax.utils import checkpoint as ckpt
 
 
 def test_model_roundtrip_mvb(tmp_path):
@@ -62,13 +62,13 @@ def test_model_roundtrip_categorical(tmp_path):
 
 def test_train_state_roundtrip(tmp_path):
     import optax
-    from nlsh_tpu.train.base import TrainState
+    from nlsh_jax.train.base import TrainState
 
     h = MultivariateBernoulli(MLPEncoder(input_dim=4, hidden_dims=(8,)), 3)
     params = {"hashing": h.init(jax.random.PRNGKey(0)), "extra": {}}
     tx = optax.amsgrad(1e-3)
     state = TrainState(params, tx.init(params), jnp.asarray(7, jnp.int32))
-    path = str(tmp_path / "state.msgpack")
+    path = str(tmp_path / "state.npz")
     ckpt.save_train_state(path, state)
 
     like = TrainState(params, tx.init(params), jnp.asarray(0, jnp.int32))

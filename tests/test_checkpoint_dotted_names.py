@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nlsh_tpu.models.encoders import MLPEncoder
-from nlsh_tpu.models.hashings import MultivariateBernoulli
-from nlsh_tpu.utils import checkpoint as ckpt
+from nlsh_jax.models.encoders import MLPEncoder
+from nlsh_jax.models.hashings import MultivariateBernoulli
+from nlsh_jax.utils import checkpoint as ckpt
 
 
 def test_dotted_base_name(tmp_path):
@@ -16,7 +16,7 @@ def test_dotted_base_name(tmp_path):
     base = str(tmp_path / "run_300_0.6528")
     ckpt.save_model(base, h, params)
     assert (tmp_path / "run_300_0.6528.json").exists()
-    assert (tmp_path / "run_300_0.6528.msgpack").exists()
+    assert (tmp_path / "run_300_0.6528.params.npz").exists()
     h2, p2 = ckpt.load_model(base)
     x = jnp.ones((2, 4))
     np.testing.assert_allclose(

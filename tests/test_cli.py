@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nlsh_tpu.cli.evaluate import run_sweep, main as eval_main
-from nlsh_tpu.cli.precompute import precompute
-from nlsh_tpu.cli.train import main as train_main, nlsh_argparse
-from nlsh_tpu.data import SyntheticDataset
-from nlsh_tpu.models.encoders import MLPEncoder
-from nlsh_tpu.models.hashings import MultivariateBernoulli
+from nlsh_jax.cli.evaluate import run_sweep, main as eval_main
+from nlsh_jax.cli.precompute import precompute
+from nlsh_jax.cli.train import main as train_main, nlsh_argparse
+from nlsh_jax.data import SyntheticDataset
+from nlsh_jax.models.encoders import MLPEncoder
+from nlsh_jax.models.hashings import MultivariateBernoulli
 
 
 def test_argparse_defaults_match_reference():
@@ -96,7 +96,7 @@ def test_eval_sweep_monotone_candidates():
 
 
 def test_eval_sweep_engines_agree():
-    """The Pallas-engine sweep must reproduce the XLA-engine sweep."""
+    """The layout-engine sweep must reproduce the XLA-engine sweep."""
     data = SyntheticDataset(n_train=512, n_test=32, dim=8, metric="cosine",
                             k_ground_truth=10, seed=3).load()
     hashing = MultivariateBernoulli(MLPEncoder(8, (16,)), 4)
@@ -105,7 +105,7 @@ def test_eval_sweep_engines_agree():
             jnp.asarray(data.testing), np.asarray(data.ground_truth))
     r_xla = run_sweep(*args, k=5, max_probes=5, metric="cosine", engine="xla")
     r_pls = run_sweep(*args, k=5, max_probes=5, metric="cosine",
-                      engine="pallas")
+                      engine="grouped")
     for a, b in zip(r_xla, r_pls):
         assert a["avg_n_candidates"] == b["avg_n_candidates"]
         assert abs(a["recall"] - b["recall"]) < 0.02
@@ -113,7 +113,7 @@ def test_eval_sweep_engines_agree():
 
 def test_eval_cli_end_to_end(tmp_path, monkeypatch, capsys):
     """Full artifact path: save a model, point eval at synthetic data."""
-    from nlsh_tpu.utils.checkpoint import save_model
+    from nlsh_jax.utils.checkpoint import save_model
 
     hashing = MultivariateBernoulli(MLPEncoder(32, (16,)), 4)
     params = hashing.init(jax.random.PRNGKey(0))
@@ -135,8 +135,8 @@ def test_eval_cli_end_to_end(tmp_path, monkeypatch, capsys):
 def test_eval_cli_multitable(tmp_path):
     """A stacked (n_tables) artifact routes to the ensemble sweep:
     per-table probe counts, exact distinct candidate counts."""
-    from nlsh_tpu.parallel.multitable import init_multi_table
-    from nlsh_tpu.utils.checkpoint import save_model
+    from nlsh_jax.parallel.multitable import init_multi_table
+    from nlsh_jax.utils.checkpoint import save_model
 
     hashing = MultivariateBernoulli(MLPEncoder(32, (16,)), 4)
     stacked = init_multi_table(hashing, 2, jax.random.PRNGKey(0))
@@ -158,8 +158,8 @@ def test_eval_cli_multitable(tmp_path):
 def test_serve_cli_build_save_load(tmp_path, capsys):
     """serve CLI: build+persist on the first run, load on the second,
     identical answers both times."""
-    from nlsh_tpu.cli.serve import main as serve_main
-    from nlsh_tpu.utils.checkpoint import save_model
+    from nlsh_jax.cli.serve import main as serve_main
+    from nlsh_jax.utils.checkpoint import save_model
 
     hashing = MultivariateBernoulli(MLPEncoder(32, (16,)), 4)
     params = hashing.init(jax.random.PRNGKey(0))
@@ -191,8 +191,8 @@ def test_serve_cli_int8_build_save_load(tmp_path, capsys):
     persisted index records the dtype, and a reload (which recomputes
     the global scale from the fingerprint-checked corpus) answers
     identically."""
-    from nlsh_tpu.cli.serve import main as serve_main
-    from nlsh_tpu.utils.checkpoint import save_model
+    from nlsh_jax.cli.serve import main as serve_main
+    from nlsh_jax.utils.checkpoint import save_model
 
     hashing = MultivariateBernoulli(MLPEncoder(32, (16,)), 4)
     params = hashing.init(jax.random.PRNGKey(0))
@@ -227,9 +227,9 @@ def test_serve_cli_loop_mode(tmp_path, monkeypatch, capsys):
     rows, so exact rerank must return each row itself at rank 1."""
     import io
 
-    from nlsh_tpu.cli.serve import main as serve_main
-    from nlsh_tpu.data import get_data_by_id
-    from nlsh_tpu.utils.checkpoint import save_model
+    from nlsh_jax.cli.serve import main as serve_main
+    from nlsh_jax.data import get_data_by_id
+    from nlsh_jax.utils.checkpoint import save_model
 
     hashing = MultivariateBernoulli(MLPEncoder(32, (16,)), 4)
     params = hashing.init(jax.random.PRNGKey(0))
@@ -279,9 +279,9 @@ def test_serve_loop_request_response_no_deadlock():
     import select
     import threading
 
-    from nlsh_tpu.cli.serve import serve_loop
-    from nlsh_tpu.data import get_data_by_id
-    from nlsh_tpu.index import Indexer
+    from nlsh_jax.cli.serve import serve_loop
+    from nlsh_jax.data import get_data_by_id
+    from nlsh_jax.index import Indexer
 
     data = get_data_by_id("synthetic").load()
     corpus = np.asarray(data.training)
@@ -334,9 +334,9 @@ def test_serve_loop_request_response_no_deadlock():
 
 def test_serve_cli_multitable_artifact(tmp_path):
     """A stacked (n_tables) artifact routes to MultiTableIndexer."""
-    from nlsh_tpu.cli.serve import main as serve_main
-    from nlsh_tpu.parallel.multitable import init_multi_table
-    from nlsh_tpu.utils.checkpoint import save_model
+    from nlsh_jax.cli.serve import main as serve_main
+    from nlsh_jax.parallel.multitable import init_multi_table
+    from nlsh_jax.utils.checkpoint import save_model
 
     hashing = MultivariateBernoulli(MLPEncoder(32, (16,)), 4)
     stacked = init_multi_table(hashing, 2, jax.random.PRNGKey(0))

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nlsh_tpu.ops import code_distances as cd
+from nlsh_jax.ops import code_distances as cd
 
 
 def test_jsd_categorical_golden():

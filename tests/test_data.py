@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from nlsh_tpu.data import Dataset, Glove, SIFT, SyntheticDataset, get_data_by_id
-from nlsh_tpu.data.datasets import norm_to_unit_sphere
+from nlsh_jax.data import Dataset, Glove, SIFT, SyntheticDataset, get_data_by_id
+from nlsh_jax.data.datasets import norm_to_unit_sphere
 
 
 @pytest.fixture
@@ -105,7 +105,7 @@ def test_norm_to_unit_sphere():
 # -- big-ann binary formats (reference stubs BigANN1B/Deep1B, data.py:204-209)
 
 def test_bin_roundtrip_all_formats(tmp_path):
-    from nlsh_tpu.data.binformats import read_bin, read_bin_header, write_bin
+    from nlsh_jax.data.binformats import read_bin, read_bin_header, write_bin
 
     rng = np.random.default_rng(0)
     for suffix, gen in [
@@ -123,7 +123,7 @@ def test_bin_roundtrip_all_formats(tmp_path):
 
 
 def test_bin_slicing(tmp_path):
-    from nlsh_tpu.data.binformats import read_bin, write_bin
+    from nlsh_jax.data.binformats import read_bin, write_bin
 
     arr = np.arange(100, dtype=np.float32).reshape(20, 5)
     path = str(tmp_path / "v.fbin")
@@ -139,7 +139,7 @@ def test_bin_slicing(tmp_path):
 
 
 def test_gt_bin_roundtrip(tmp_path):
-    from nlsh_tpu.data.binformats import read_gt_bin, write_gt_bin
+    from nlsh_jax.data.binformats import read_gt_bin, write_gt_bin
 
     rng = np.random.default_rng(1)
     ids = rng.integers(0, 1000, (8, 10)).astype(np.int32)
@@ -152,7 +152,7 @@ def test_gt_bin_roundtrip(tmp_path):
 
 
 def test_big_binary_dataset(tmp_path):
-    from nlsh_tpu.data.binformats import (
+    from nlsh_jax.data.binformats import (
         BigBinaryDataset, write_bin, write_gt_bin,
     )
 
@@ -181,7 +181,7 @@ def test_big_binary_dataset(tmp_path):
 
 
 def test_get_data_by_id_bigann(tmp_path, monkeypatch):
-    from nlsh_tpu.data.binformats import write_bin
+    from nlsh_jax.data.binformats import write_bin
 
     rng = np.random.default_rng(3)
     bp, qp = str(tmp_path / "b.u8bin"), str(tmp_path / "q.u8bin")

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nlsh_tpu.ops import distances as D
+from nlsh_jax.ops import distances as D
 
 
 @pytest.fixture

@@ -1,4 +1,4 @@
-"""Native HNSW baseline (nlsh_tpu/native/hnsw.cpp) — the in-repo
+"""Native HNSW baseline (nlsh_jax/native/hnsw.cpp) — the in-repo
 backend for the reference's hnswlib yardstick (reference
 ``nlsh/trainers/hnsw.py:28-63``; hnswlib itself is not installable in
 this image).  Tests run on CPU and validate the graph search against
@@ -7,7 +7,7 @@ numpy brute force."""
 import numpy as np
 import pytest
 
-from nlsh_tpu import native
+from nlsh_jax import native
 
 
 pytestmark = pytest.mark.skipif(
@@ -96,9 +96,9 @@ def test_hnsw_trainer_uses_native_backend():
         pytest.skip("hnswlib installed: trainer prefers it by design")
     except ImportError:
         pass
-    from nlsh_tpu.data import SyntheticDataset
-    from nlsh_tpu.train.hnsw import HNSWBaseline
-    from nlsh_tpu.utils.loggers import JSONLLogger
+    from nlsh_jax.data import SyntheticDataset
+    from nlsh_jax.train.hnsw import HNSWBaseline
+    from nlsh_jax.utils.loggers import JSONLLogger
 
     data = SyntheticDataset(
         n_train=2000, n_test=100, dim=16, metric="cosine", seed=3

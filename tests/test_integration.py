@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nlsh_tpu.data import SyntheticDataset
-from nlsh_tpu.index import Indexer
-from nlsh_tpu.models import ProductQuantization, get_encoder
-from nlsh_tpu.train import TripletTrainer
-from nlsh_tpu.utils.metrics import calculate_recall
+from nlsh_jax.data import SyntheticDataset
+from nlsh_jax.index import Indexer
+from nlsh_jax.models import ProductQuantization, get_encoder
+from nlsh_jax.train import TripletTrainer
+from nlsh_jax.utils.metrics import calculate_recall
 
 
 def test_pq_hashing_trains_and_serves(tmp_path):
@@ -42,15 +42,15 @@ def test_training_resume_continues(tmp_path):
     data = SyntheticDataset(n_train=512, n_test=32, dim=8, metric="cosine",
                             k_ground_truth=10, seed=0).load()
 
-    from nlsh_tpu.models.encoders import MLPEncoder
-    from nlsh_tpu.models.hashings import MultivariateBernoulli
+    from nlsh_jax.models.encoders import MLPEncoder
+    from nlsh_jax.models.hashings import MultivariateBernoulli
 
     hashing = MultivariateBernoulli(MLPEncoder(8, (16,)), 4)
     tr = TripletTrainer(hashing, data, str(tmp_path), positive_k=5)
     state1 = tr.fit(K=5, batch_size=64, epochs=1, test_every_updates=4,
                     max_steps=4, hash_times=3, seed=7)
     assert int(state1.step) == 4
-    ckpts = sorted(glob.glob(str(tmp_path / "*.state")))
+    ckpts = sorted(glob.glob(str(tmp_path / "*.state.npz")))
     assert ckpts
 
     hashing2 = MultivariateBernoulli(MLPEncoder(8, (16,)), 4)

@@ -1,9 +1,9 @@
-"""Tests for the tiled brute-force kNN (MXU GT precompute replacement)."""
+"""Tests for the tiled brute-force kNN (the GT precompute replacement)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from nlsh_tpu.ops.knn import knn, self_knn
+from nlsh_jax.ops.knn import knn, self_knn
 
 
 def _np_knn(queries, corpus, k, metric):

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from nlsh_tpu.utils.metrics import calculate_recall, recall_matrix
+from nlsh_jax.utils.metrics import calculate_recall, recall_matrix
 import jax.numpy as jnp
 
 

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nlsh_tpu.models.encoders import MLPEncoder, SirenEncoder, TwoLayer256Relu, get_encoder
-from nlsh_tpu.models.hashings import Categorical, MultivariateBernoulli, get_hashing
-from nlsh_tpu.ops.packing import pack_bits
+from nlsh_jax.models.encoders import MLPEncoder, SirenEncoder, TwoLayer256Relu, get_encoder
+from nlsh_jax.models.hashings import Categorical, MultivariateBernoulli, get_hashing
+from nlsh_jax.ops.packing import pack_bits
 
 
 @pytest.fixture
@@ -119,9 +119,9 @@ def test_mvb_flip_probe_mode(x):
 def test_flip_beats_sampling_on_recall():
     """Deterministic best-first probing should match or beat Bernoulli
     sampling at equal probe count."""
-    from nlsh_tpu.data import SyntheticDataset
-    from nlsh_tpu.index import Indexer
-    from nlsh_tpu.utils.metrics import calculate_recall
+    from nlsh_jax.data import SyntheticDataset
+    from nlsh_jax.index import Indexer
+    from nlsh_jax.utils.metrics import calculate_recall
 
     data = SyntheticDataset(n_train=4096, n_test=256, dim=16, n_clusters=64,
                             metric="cosine", k_ground_truth=10, seed=0).load()
@@ -163,7 +163,7 @@ def test_hashing_factory():
 
 
 def test_product_quantization():
-    from nlsh_tpu.models.hashings import ProductQuantization, get_hashing
+    from nlsh_jax.models.hashings import ProductQuantization, get_hashing
 
     enc = MLPEncoder(10, (16,))
     pq = get_hashing("ProductQuantization", enc, 8)  # 2 bands x 4 bits
@@ -195,8 +195,8 @@ def test_categorical_nprobes_validation():
     masked invalid) instead of crashing inside jit (round-1 advisor)."""
     import jax
 
-    from nlsh_tpu.models.encoders import MLPEncoder
-    from nlsh_tpu.models.hashings import Categorical
+    from nlsh_jax.models.encoders import MLPEncoder
+    from nlsh_jax.models.hashings import Categorical
 
     h = Categorical(MLPEncoder(input_dim=8, hidden_dims=(16,)), 4)
     params = h.init(jax.random.PRNGKey(0))
@@ -221,7 +221,7 @@ def test_pq_flip_probes_deterministic_and_superset():
     import jax
     import jax.numpy as jnp
 
-    from nlsh_tpu.models import get_encoder, get_hashing
+    from nlsh_jax.models import get_encoder, get_hashing
 
     pq = get_hashing("ProductQuantization", get_encoder("mlp", 12, [16]), 8)
     params = pq.init(jax.random.PRNGKey(0))
@@ -248,10 +248,10 @@ def test_pq_flip_probes_lift_recall_of_indexer():
     import jax
     import jax.numpy as jnp
 
-    from nlsh_tpu.index import Indexer
-    from nlsh_tpu.models import get_encoder, get_hashing
-    from nlsh_tpu.utils.metrics import calculate_recall
-    from nlsh_tpu.ops.knn import knn
+    from nlsh_jax.index import Indexer
+    from nlsh_jax.models import get_encoder, get_hashing
+    from nlsh_jax.utils.metrics import calculate_recall
+    from nlsh_jax.ops.knn import knn
 
     rng = np.random.default_rng(3)
     pts = rng.normal(size=(4096 + 64, 16)).astype(np.float32)
@@ -273,7 +273,7 @@ def test_pq_flip_probes_lift_recall_of_indexer():
 
 
 def test_band_balance_loss_prefers_uniform_confident():
-    from nlsh_tpu.ops.code_distances import band_balance_loss
+    from nlsh_jax.ops.code_distances import band_balance_loss
 
     # uniform-and-confident: each band's hard assignment spread evenly
     eye = np.eye(4, dtype=np.float32) * 0.97 + 0.01
@@ -293,7 +293,7 @@ def test_band_balance_loss_penalises_correlated_bands():
     diagonal (16 of 256 buckets) and must score much worse than
     independent uniform bands — the marginals-only loss cannot see
     this (it produced a 1341/4096-bucket collapse at 1.18M)."""
-    from nlsh_tpu.ops.code_distances import band_balance_loss
+    from nlsh_jax.ops.code_distances import band_balance_loss
 
     rng = np.random.default_rng(0)
     n, B = 256, 16

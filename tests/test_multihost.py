@@ -3,9 +3,9 @@
 across them (round-2 VERDICT #7 — ``parallel/multihost.py`` must have a
 caller that passes in CI).
 
-The DCN-analog transport on CPU is Gloo over gRPC; on a TPU pod the
-identical ``initialize_from_env`` + ``Mesh``/``shard_map`` code rides
-ICI/DCN (SURVEY §5 distributed-backend item).
+The transport on CPU is Gloo over gRPC; on a GPU cluster the identical
+``initialize_from_env`` + ``Mesh``/``shard_map`` code rides NCCL over
+NVLink and the network (SURVEY §5 distributed-backend item).
 """
 
 import json

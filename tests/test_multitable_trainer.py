@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from nlsh_tpu.data import SyntheticDataset
-from nlsh_tpu.models.encoders import MLPEncoder
-from nlsh_tpu.models.hashings import MultivariateBernoulli
-from nlsh_tpu.train import AETrainer, MultiTableTrainer, TripletTrainer
-from nlsh_tpu.utils.checkpoint import load_model
+from nlsh_jax.data import SyntheticDataset
+from nlsh_jax.models.encoders import MLPEncoder
+from nlsh_jax.models.hashings import MultivariateBernoulli
+from nlsh_jax.train import AETrainer, MultiTableTrainer, TripletTrainer
+from nlsh_jax.utils.checkpoint import load_model
 
 
 @pytest.fixture(scope="module")

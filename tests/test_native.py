@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nlsh_tpu import native
-from nlsh_tpu.index.bucket_table import build_bucket_table
-from nlsh_tpu.ops import packing
+from nlsh_jax import native
+from nlsh_jax.index.bucket_table import build_bucket_table
+from nlsh_jax.ops import packing
 
 
 @pytest.fixture(scope="module")

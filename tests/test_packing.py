@@ -4,7 +4,7 @@ of the reference Cython kernel (``nlsh/utils.pyx:7-32``)."""
 import jax.numpy as jnp
 import numpy as np
 
-from nlsh_tpu.ops import packing
+from nlsh_jax.ops import packing
 
 
 def _ref_binarr_to_int(binarr):

@@ -2,7 +2,7 @@
 
 import jax.numpy as jnp
 
-from nlsh_tpu.utils.profiling import PhaseTimer, trace
+from nlsh_jax.utils.profiling import PhaseTimer, trace
 
 
 def test_phase_timer_accumulates():

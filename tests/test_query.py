@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nlsh_tpu.index.bucket_table import build_bucket_table
-from nlsh_tpu.index.query import query_bucket_table
-from nlsh_tpu.index.indexer import Indexer
-from nlsh_tpu.models.encoders import MLPEncoder
-from nlsh_tpu.models.hashings import MultivariateBernoulli
+from nlsh_jax.index.bucket_table import build_bucket_table
+from nlsh_jax.index.query import query_bucket_table
+from nlsh_jax.index.indexer import Indexer
+from nlsh_jax.models.encoders import MLPEncoder
+from nlsh_jax.models.hashings import MultivariateBernoulli
 
 
 def _np_reference_query(bucket_ids, corpus, queries, probe_sets, k, metric):
@@ -123,9 +123,9 @@ def test_hash_corpus_host_matches_device():
     chunk."""
     import numpy as np
 
-    from nlsh_tpu.index.indexer import hash_corpus, hash_corpus_host
-    from nlsh_tpu.models.encoders import MLPEncoder
-    from nlsh_tpu.models.hashings import MultivariateBernoulli
+    from nlsh_jax.index.indexer import hash_corpus, hash_corpus_host
+    from nlsh_jax.models.encoders import MLPEncoder
+    from nlsh_jax.models.hashings import MultivariateBernoulli
 
     rng = np.random.default_rng(3)
     corpus = rng.normal(size=(1000, 12)).astype(np.float32)
